@@ -24,17 +24,21 @@ import time
 
 import numpy as np
 
+# generated corpora, outputs and cached reference rows live in the checkout
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                    ".bench_data")
 N = int(os.environ.get("BENCH_N", "15000"))
 LEN = int(os.environ.get("BENCH_LEN", "1000"))
 SPECIES = max(10, N // 100)
-FASTA = f"/tmp/meshclust_bench_{N}_{LEN}.fasta"
-REF_SECONDS_FILE = f"/tmp/meshclust_bench_ref_{N}_{LEN}.txt"
+FASTA = f"{DATA}/meshclust_bench_{N}_{LEN}.fasta"
+REF_SECONDS_FILE = f"{DATA}/meshclust_bench_ref_{N}_{LEN}.txt"
 PUBLISHED_RATE = 15000 / 4.28   # Tables/Real.csv:12 (authors' 2018 CPU)
 
 
-def make_dataset(n: int = N) -> str:
+def make_dataset(n: int = N, directory: str = DATA) -> str:
     species = max(10, n // 100)
-    fasta = f"/tmp/meshclust_bench_{n}_{LEN}.fasta"
+    os.makedirs(directory, exist_ok=True)
+    fasta = f"{directory}/meshclust_bench_{n}_{LEN}.fasta"
     if os.path.exists(fasta):
         return fasta
     rng = np.random.default_rng(42)
@@ -58,12 +62,14 @@ def make_dataset(n: int = N) -> str:
     return fasta
 
 
-def make_viral_dataset(n_species: int = 6, per: int = 500) -> str:
+def make_viral_dataset(n_species: int = 6, per: int = 500,
+                       directory: str = DATA) -> str:
     """Multi-virus mix for the low-identity align-mode config
     (BASELINE config 4; reference quality rows Tables/Viral.csv:6-19):
     unrelated ~1.2kb base genomes, clones mutated 12-22% so within-species
     identity lands ~0.6-0.8 and cross-species ~0.45-0.5."""
-    fasta = f"/tmp/meshclust_bench_viral_{n_species}x{per}.fasta"
+    os.makedirs(directory, exist_ok=True)
+    fasta = f"{directory}/meshclust_bench_viral_{n_species}x{per}.fasta"
     if os.path.exists(fasta):
         return fasta
     rng = np.random.default_rng(7)
@@ -88,7 +94,8 @@ def make_viral_dataset(n_species: int = 6, per: int = 500) -> str:
 def make_16s_dataset(n: int = 20000) -> str:
     """16S-amplicon-style set (BASELINE config 3; reference rows
     Tables/Real.csv:54-75): ~253bp reads, many species, --id 0.85."""
-    fasta = f"/tmp/meshclust_bench_16s_{n}.fasta"
+    os.makedirs(DATA, exist_ok=True)
+    fasta = f"{DATA}/meshclust_bench_16s_{n}.fasta"
     if os.path.exists(fasta):
         return fasta
     rng = np.random.default_rng(16)
@@ -170,12 +177,12 @@ def reference_row(key: str, fasta: str, budget_s: float,
     """Measured on-THIS-machine reference baseline for one bench config:
     {"ref_wall_s", "ref_purity", "ref_nmi", "ref_n_clusters"} plus the
     reference CLSTR retained at a stable path for partition comparison.
-    Results (including a timeout marker) are cached in /tmp so each
+    Results (including a timeout marker) are cached in DATA so each
     machine pays the CPU run once (round-4 verdict weak #3)."""
     if os.environ.get("BENCH_SKIP_REF") == "1":
         return None
-    cache = f"/tmp/meshclust_bench_refrow_{key}.json"
-    out_clstr = f"/tmp/meshclust_bench_refout_{key}.clstr"
+    cache = f"{DATA}/meshclust_bench_refrow_{key}.json"
+    out_clstr = f"{DATA}/meshclust_bench_refout_{key}.clstr"
     if os.path.exists(cache):
         try:
             row = json.loads(open(cache).read())
@@ -211,7 +218,7 @@ def attach_reference(row: dict, key: str, fasta: str, ours_clstr: str,
     if ref is None:
         return
     row.update(ref)
-    ref_clstr = f"/tmp/meshclust_bench_refout_{key}.clstr"
+    ref_clstr = f"{DATA}/meshclust_bench_refout_{key}.clstr"
     if os.path.exists(ref_clstr) and os.path.exists(ours_clstr):
         row["partition_nmi_vs_ref"] = round(
             _nmi(read_members(ours_clstr), read_members(ref_clstr)), 4)
@@ -231,7 +238,7 @@ def time_reference(path: str) -> float | None:
         t0 = time.time()
         # pin --threads to all cores so the CPU baseline is honest on any
         # machine size (round-2 verdict weak #3)
-        run_reference(path, "/tmp/bench_ref.clstr", similarity=0.90,
+        run_reference(path, f"{DATA}/bench_ref.clstr", similarity=0.90,
                       threads=os.cpu_count(), timeout=3600)
         dt = time.time() - t0
         with open(REF_SECONDS_FILE, "w") as f:
@@ -246,7 +253,8 @@ def warmup() -> None:
     the timed region measures steady-state clustering."""
     rng = np.random.default_rng(7)
     bases = "ACGT"
-    wpath = "/tmp/meshclust_bench_warmup.fasta"
+    os.makedirs(DATA, exist_ok=True)
+    wpath = f"{DATA}/meshclust_bench_warmup.fasta"
     with open(wpath, "w") as f:
         for s in range(8):
             L = LEN + int(rng.integers(-LEN // 10, LEN // 10))
@@ -262,20 +270,8 @@ def warmup() -> None:
     from meshclust_tpu.config import ClusterConfig
     from meshclust_tpu.core.runner import run
     run(ClusterConfig(files=[wpath], similarity=0.90,
-                      output="/tmp/bench_warmup.clstr", iterations=2,
+                      output=f"{DATA}/bench_warmup.clstr", iterations=2,
                       sample_size=200))
-    # Deterministically pre-compile every aligner length-bucket variant the
-    # timed run can hit (lengths span [0.9*LEN, 1.1*LEN]); the main-run
-    # labeling phase then runs steady-state.
-    from meshclust_tpu.ops.align import align_identity_batch
-    hi = LEN + LEN // 10
-    lo = max(4, LEN - LEN // 10)
-    probes = []
-    for la in sorted({lo, LEN, hi}):
-        a = rng.integers(0, 4, size=la).astype(np.uint8)
-        b = rng.integers(0, 4, size=hi).astype(np.uint8)
-        probes.append((a, b))
-    align_identity_batch(probes)
 
 
 def _perf_row(name, n, wall_s, rep, cold_s=None, published_s=None):
@@ -290,8 +286,7 @@ def _perf_row(name, n, wall_s, rep, cold_s=None, published_s=None):
         row["cold_wall_s"] = round(cold_s, 3)
     if published_s is not None:
         row["vs_published_ref"] = round(published_s / wall_s, 3)
-    for key in ("nw_cells_per_s", "nw_vpu_util_est", "classify_rows_per_s",
-                "accum_gbps", "accum_hbm_util_est"):
+    for key in ("nw_cells_per_s", "classify_rows_per_s", "accum_gbps"):
         if key in rep:
             row[key] = float(f"{rep[key]:.4g}")
     for key in ("nw_cells", "nw_pairs"):
@@ -321,7 +316,7 @@ def main() -> None:
         return time.time() - t0, perf.report()
 
     warmup()
-    out = "/tmp/bench_ours.clstr"
+    out = f"{DATA}/bench_ours.clstr"
 
     # Total CPU-time budget for measuring the reference binary on THIS
     # machine (cached per config across runs, so later invocations spend
@@ -331,7 +326,7 @@ def main() -> None:
 
     def attach_ref(row, key, fasta, **flags):
         import shutil
-        ours_copy = f"/tmp/meshclust_bench_ours_{key}.clstr"
+        ours_copy = f"{DATA}/meshclust_bench_ours_{key}.clstr"
         shutil.copyfile(out, ours_copy)
         t0 = time.time()
         attach_reference(row, key, fasta, ours_copy,

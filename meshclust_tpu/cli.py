@@ -1,6 +1,6 @@
 """CLI mirroring the reference flags (Runner::get_opts, Runner.cpp:150-263).
 
-Usage: meshclust-tpu *.fasta [--id 0.90] [--kmer K] [--delta 5]
+Usage: python -m meshclust_tpu.cli *.fasta [--id 0.90] [--kmer K] [--delta 5]
        [--output output.clstr] [--iterations 15] [--align] [--sample 3000]
        [--pivot 20] [--threads N]
 """
@@ -15,8 +15,8 @@ from meshclust_tpu.core.runner import run
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="meshclust-tpu",
-        description="TPU-native DNA mean-shift clustering "
+        prog="meshclust",
+        description="DNA mean-shift clustering on an accelerator "
                     "(MeShClust-capability engine)")
     p.add_argument("files", nargs="+", help="input FASTA files")
     p.add_argument("--id", dest="similarity", type=float, default=0.90,
@@ -37,8 +37,6 @@ def build_parser() -> argparse.ArgumentParser:
                    type=int, default=15, help="update+merge iterations")
     p.add_argument("-t", "--threads", type=int, default=None,
                    help="host thread hint (device path ignores this)")
-    p.add_argument("--no-pallas", action="store_true",
-                   help="disable Pallas kernels (XLA fallbacks)")
     p.add_argument("--exact", action="store_true",
                    help="float64 host classifier (slow, parity debugging)")
     p.add_argument("--checkpoint", default=None, metavar="PREFIX",
@@ -66,7 +64,6 @@ def main(argv=None) -> int:
         delta=args.delta,
         iterations=args.iterations,
         threads=args.threads,
-        use_pallas=not args.no_pallas,
         exact=args.exact,
         checkpoint=args.checkpoint,
     )

@@ -38,7 +38,6 @@ class ClusterConfig:
     # Engine knobs (no reference analogue)
     bin_size: int = 1000              # bvec bin size (Runner.cpp:342)
     acc_cutoff: float = 97.5          # Trainer::train default (Trainer.h:36)
-    use_pallas: bool = True           # Pallas kernels vs pure-XLA fallbacks
     exact: bool = False               # float64 host decisions (tests/debug)
     seed: int = 10                    # srand(10) analogue (Runner.cpp:38)
     checkpoint: Optional[str] = None  # milestone save/resume prefix (§5.4)

@@ -68,7 +68,7 @@ def exact_mode(use_ds: bool) -> str:
 
 
 def _pick_tile(N: int) -> int:
-    """Static sweep-chunk width: one tile for small runs, bounded VMEM
+    """Static sweep-chunk width: one tile for small runs, a bounded
     working set ([TILE, V] f32 gather) for large ones. Override with
     MESHCLUST_ACCUM_TILE."""
     import os
@@ -107,8 +107,8 @@ def build_accumulate(N: int, V: int, nbins: int, Cmax: int, sim: float,
     per-shard exact partials is order-independent and the sharded program
     is BIT-IDENTICAL to the replicated one; the DS/cert tie-break machinery
     consumes only those already-reduced scalars (ops/ds_classify.py). Per-
-    device HBM traffic for the [N, V] sweeps drops by the mesh size, which
-    is the phase's roofline (measured 55% HBM util single-chip)."""
+    device HBM traffic for the [N, V] sweeps, which bound the phase, drops
+    by the mesh size."""
     singles = tuple(singles)
     combos = tuple((c, tuple(ix)) for c, ix in combos)
     T = tile or _pick_tile(N)
@@ -142,10 +142,10 @@ def build_accumulate(N: int, V: int, nbins: int, Cmax: int, sim: float,
            nfb0, c_limit):
         """One bounded dispatch: continue the accumulation from the given
         state until done OR c reaches c_limit. Bounding the per-dispatch
-        center count keeps single-program runtime under any TPU runtime
-        watchdog (an unbounded 1M-point program ran for minutes in one
-        dispatch and crashed the worker) and lets the host report
-        progress between chunks. State arrays are donated.
+        center count keeps single-program runtime under a runtime
+        watchdog (an unbounded 1M-point program can run for minutes in
+        one dispatch) and lets the host report progress between chunks.
+        State arrays are donated.
 
         Slots are BUCKET-LOCAL: the driver periodically compacts the live
         set into a smaller power-of-4 bucket (absorbed members are never
@@ -238,11 +238,10 @@ def build_accumulate(N: int, V: int, nbins: int, Cmax: int, sim: float,
                           sumvec, count, t, c, nfb):
             """Full-array masked sweep: classify EVERY slot against the
             center at last_slot in a handful of fused [N, V]/[N] ops, mask
-            to live in-window rows, absorb positives. Replaces the round-3
-            rank-tile while_loop: per-tile dispatch overhead (~25 ops x
-            ~18 tiles x ~20us) dominated the absorb iteration; one full-N
-            pass is ~10x cheaper wall-clock even though it touches every
-            row (measured 0.9 ms vs 8.5 ms per iteration at 150k x 256).
+            to live in-window rows, absorb positives. Replaces a rank-tile
+            while_loop whose per-tile dispatch overhead (~25 ops per tile)
+            dominated the absorb iteration; one full-N pass trades touching
+            every row for a handful of fused ops.
             All row reductions are exact (integer-valued f32 < 2^24), so
             results are bit-identical to the tiled path.
 
@@ -263,7 +262,7 @@ def build_accumulate(N: int, V: int, nbins: int, Cmax: int, sim: float,
             # everything downstream (cert bounds, DS fallbacks) consumes
             # replicated scalars.
             man = _vsum(jnp.sum(jnp.abs(h_f - h_c[None, :]), axis=1))
-            dot = _vsum(h_f @ h_c)
+            dot = _vsum(jnp.dot(h_f, h_c, precision=F.HIGHEST))
             if mode == "cert":
                 from meshclust_tpu.ops import certify as CT
                 s, eps_s, f1, eps_f1 = CT.score(
@@ -303,18 +302,13 @@ def build_accumulate(N: int, V: int, nbins: int, Cmax: int, sim: float,
             stamp = jnp.where(pos, t, stamp)
             active = active & ~pos
             npos_i = jnp.sum(pos, dtype=i32)
-            # [1,N]x[N,V] matvec: exact integer f32 accumulation on the
-            # MXU. NOT wrapped in lax.cond: a cond branch capturing h_f
-            # forces the u8->f32 convert to materialize as a 1 GB branch
-            # operand at 1M x 256 (measured +50s over a run);
-            # unconditional, the convert fuses into the dot. (A round-5
-            # experiment replaced this + the argmin sweep with an
-            # incrementally-scattered member list; TPU scatter runs ~9 ns
-            # per index — 1.4 ms/iteration at 150k — and top_k/nonzero
-            # compaction is no cheaper, so full-array passes win.)
+            # [1,N]x[N,V] matvec: exact integer f32 accumulation. NOT
+            # wrapped in lax.cond: a cond branch capturing h_f forces the
+            # u8->f32 convert to materialize as a 1 GB branch operand at
+            # 1M x 256; unconditional, the convert fuses into the dot.
             sumvec = sumvec + jax.lax.dot_general(
                 pos.astype(jnp.float32)[None, :], h_f,
-                (((1,), (0,)), ((), ())),
+                (((1,), (0,)), ((), ())), precision=F.HIGHEST,
                 preferred_element_type=jnp.float32)[0]
             count = count + npos_i.astype(jnp.float32)
             # exactness telemetry: per-lane cluster sums must stay < 2^24
@@ -607,9 +601,9 @@ def accumulate_device(ps, bv, params: F.FeatureParams, sim: float,
     K = max(1, int(os.environ.get("MESHCLUST_ACCUM_CHUNK", "512")))
     compact_on = os.environ.get("MESHCLUST_ACCUM_COMPACT", "1") == "1"
     min_bucket = int(os.environ.get("MESHCLUST_ACCUM_MINBUCKET", "4096"))
-    # Below ~260k points the full-bucket sweeps are already cheap (150k
-    # accumulate ~3.5s) and each bucket variant costs a cold compile, so
-    # compaction defaults off for small corpora (override via env).
+    # Below ~260k points the full-bucket sweeps are cheap and each bucket
+    # variant costs a cold compile, so compaction defaults off for small
+    # corpora (override via env).
     if "MESHCLUST_ACCUM_COMPACT" not in os.environ and N < 262144:
         compact_on = False
     i32 = jnp.int32
@@ -640,50 +634,6 @@ def accumulate_device(ps, bv, params: F.FeatureParams, sim: float,
         g_owner[oi[sel]] = ow[sel]
         g_stamp[oi[sel]] = st[sel]
 
-    # Cold-start prewarm (round-4 verdict #6): the compaction ladder's
-    # bucket programs are needed MID-phase; compile them in a background
-    # thread while the first (foreground-compiled) program is already
-    # absorbing, so a fresh machine overlaps the remote-compile latency
-    # with Phase A compute instead of serializing it.  Compiled
-    # executables land in the persistent cache (utils/jaxcache), so the
-    # real dispatch later is a disk hit.  Replicated runs only (sharded
-    # lowerings key on input shardings).
-    if (compact_on and mesh is None
-            and os.environ.get("MESHCLUST_ACCUM_PREWARM", "1") == "1"):
-        import threading
-
-        def _spec(a, shape=None):
-            return jax.ShapeDtypeStruct(shape or a.shape, a.dtype)
-
-        def _prewarm():
-            nb = 1 << max(min_bucket.bit_length() - 1,
-                          (N - 1).bit_length() - 1)
-            while nb >= min_bucket:
-                try:
-                    fnb = build_accumulate(
-                        nb, ps.V, nbins, Cmax, sim, params.singles,
-                        combos_l, mode=mode)
-                    args = (
-                        _spec(hist_b, (nb, hist_b.shape[1])),
-                        _spec(mag_b, (nb,)), _spec(sq_b, (nb,)),
-                        _spec(len_b, (nb,)), _spec(orig_b, (nb,)),
-                        _spec(bin_of_b, (nb,)), _spec(bin_start_b),
-                        _spec(bin_end_b), _spec(bb_dev), _spec(mins_a),
-                        _spec(maxs_a), _spec(is_sim_a), _spec(weights_a),
-                        jax.ShapeDtypeStruct((nb,), bool),
-                        jax.ShapeDtypeStruct((nb,), np.int32),
-                        jax.ShapeDtypeStruct((nb,), np.int32),
-                        _spec(t), _spec(seed), _spec(c),
-                        _spec(center_slot), _spec(done), _spec(nfb),
-                        _spec(t))
-                    fnb.lower(*args).compile()
-                except Exception:     # prewarm is best-effort only
-                    pass
-                nb //= 2
-
-        threading.Thread(target=_prewarm, daemon=True,
-                         name="accum-prewarm").start()
-
     from meshclust_tpu.utils.progress import Progress
     prog = Progress(N + 1, "Accumulation")
     n_done_prev = 0
@@ -704,9 +654,9 @@ def accumulate_device(ps, bv, params: F.FeatureParams, sim: float,
         n_done = N - (live + 1)
         prog += max(0, n_done - n_done_prev)
         n_done_prev = max(n_done_prev, n_done)
-        # roofline accounting: every absorb iteration streams the bucket's
-        # u8 histogram ~2.7x (classify read + sumvec matvec + argmin on
-        # ~70% of iterations); perf reports achieved vs HBM bandwidth
+        # traffic model: every absorb iteration streams the bucket's u8
+        # histogram ~2.7x (classify read + sumvec matvec + argmin on most
+        # iterations); perf reports the achieved GB/s
         from meshclust_tpu.utils import perf as _perf
         _perf.add("accum_sweep_bytes",
                   2.7 * float(int(t) - t_prev) * Nb * ps.V)

@@ -45,9 +45,8 @@ def _mesh_key(mesh):
 
 def _cached_build(key, builder):
     """Process-wide cache of built jitted programs. A fresh DeviceBackend
-    per run() used to rebuild (and retrace) every jit closure — ~2 s of
-    pure tracing per run at 15k scale (round-3 measurement: a warm
-    phase_b_loop executes in 0.36 s but the bench phase showed 2.2 s).
+    per run() used to rebuild (and retrace) every jit closure, so the
+    tracing cost more than the warm phase_b_loop itself.
     Keyed on everything the closures capture."""
     fn = _FN_CACHE.get(key)
     if fn is None:
@@ -437,7 +436,7 @@ class DeviceBackend:
             h_c = hist[center].astype(jnp.float32)     # [V]
             h_w = hist[window].astype(jnp.float32)     # [W, V]
             man = jnp.sum(jnp.abs(h_w - h_c[None, :]), axis=1)
-            dot = h_w @ h_c
+            dot = jnp.dot(h_w, h_c, precision=F.HIGHEST)
             return score_rows(man, dot, mag[center], mag[window],
                               sq[center], sq[window], lens[center],
                               lens[window], mins, maxs, is_sim, weights)

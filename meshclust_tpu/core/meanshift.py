@@ -253,6 +253,8 @@ class MeanShift:
                 replay_assign[lookup[np.asarray(c.members, np.int64)]] = j
             mismatch = not np.array_equal(replay_assign, a_dev)
         if mismatch:
+            from meshclust_tpu.utils import perf
+            perf.add("phase_b_replay_fallbacks", 1)
             log(f"WARNING: fused Phase-B replay mismatch (device kept "
                 f"{n_valid} centers, host replay {len(centers)}); falling "
                 f"back to per-iteration host Phase B")

@@ -71,7 +71,7 @@ def _run(cfg: ClusterConfig) -> dict:
 
     log(f"Counting {k}-mers")
     with perf.phase("featurize"):
-        ps = build_points(seqs, k, use_pallas=cfg.use_pallas, mesh=mesh)
+        ps = build_points(seqs, k, mesh=mesh)
     largest_count = ps.largest
     bits = int(np.dtype(H.storage_dtype(largest_count)).itemsize * 8)
     log(f"Using {bits} bit histograms")
@@ -87,6 +87,8 @@ def _run(cfg: ClusterConfig) -> dict:
     if (cfg.match, cfg.mismatch, cfg.gap_open, cfg.gap_continue) \
             == (1, -1, 2, 1):
         trainer._dev_aligner = aligner   # share the staged codes
+    else:
+        trainer._dev_aligner = DeviceAligner(ps.codes)
     from meshclust_tpu.utils import checkpoint as ckpt
     tk = 0 if cfg.align else k
     model = None

@@ -69,7 +69,8 @@ class Trainer:
 
     def _pivot_orders(self, rows: np.ndarray):
         """Distance-sort orders for each pivot, kept ON DEVICE; only gathered
-        entries are transferred (the 1M-scale path avoids moving [P, N])."""
+        entries are transferred back. The keys cross the bus in chunks of
+        16 pivots, so no [P, N] array is ever held on the host."""
         if self.exact:
             dists = self._distance_rows(rows)
             orders = [np.argsort(dists[i], kind="stable")
@@ -82,25 +83,18 @@ class Trainer:
 
             return HostOrders()
 
-        import jax
         import jax.numpy as jnp
         ps = self.ps
-        dev = ps.device_arrays()
         P = rows.shape[0]
         order_rows = []
-        if not hasattr(ps, "_pivot_distfn"):
-            # device-resident sort keys for the beyond-REFSORT_MAX path:
-            # DS keys where inputs are exact (ties may still order
-            # differently from f64 near integer floors — documented
-            # drift for this regime), plain f32 otherwise
-            from meshclust_tpu.core.points import _get_distfn
-            from meshclust_tpu.ops import ds as _ds
-            ps._pivot_distfn = _get_distfn(_ds.ds_inputs_exact(
-                int(ps.mag.max()), int(ps.sq.max())))
         for s in range(0, P, 16):
-            chunk = jnp.asarray(rows[s: s + 16].astype(np.int32))
-            d = ps._pivot_distfn(dev["hist"], dev["mag"], chunk)
-            order_rows.append(jnp.argsort(d, axis=1, stable=True)
+            # sort keys from distance_rows_device: the host's float64
+            # finish where the inputs are f32-exact (keys equal
+            # distance_row), plain f32 otherwise; d in [-1, 10000] fits
+            # int16. Only the argsort and the orders stay on the device.
+            d = ps.distance_rows_device(rows[s: s + 16])
+            order_rows.append(jnp.argsort(jnp.asarray(d.astype(np.int16)),
+                                          axis=1, stable=True)
                               .astype(jnp.int32))
         orders_dev = jnp.concatenate(order_rows, axis=0)
 
@@ -116,21 +110,20 @@ class Trainer:
         return DevOrders()
 
     def _probe_aligner(self):
-        """The DeviceAligner when the fused probe-round path is usable."""
+        """The DeviceAligner for the fused probe rounds (None in exact
+        mode, whose orders live on the host)."""
         if self.exact:
             return None
         if self._dev_aligner is None:
             from meshclust_tpu.ops.align_device import DeviceAligner
             self._dev_aligner = DeviceAligner(self.ps.codes)
-        da = self._dev_aligner
-        return da if da.probe_rounds_supported() else None
+        return self._dev_aligner
 
     # -- alignment labeling -------------------------------------------------
     def _default_align_batch(self, pairs: Sequence[Tuple[int, int]]
                              ) -> np.ndarray:
-        """Batched GlobAlignE identities for index pairs: single-dispatch
-        grid kernel over staged device codes (ops/align_device.py); falls
-        back to the XLA scan path off-TPU.
+        """Batched GlobAlignE identities for index pairs over the staged
+        device codes (ops/align_device.py).
 
         Multi-host (jax.distributed): the pair list is strided across
         processes — labeling is embarrassingly parallel — and the identity

@@ -16,9 +16,10 @@ cell (i,j) aligns seq1[i-1] with seq2[j-1], s = match/mismatch score):
     M(i,j)  = s + max(M(i-1,j-1), LG(i-1,j-1), UG(i-1,j-1))   [priority M,LG,UG]
     LG(i,j) = max(M(i-1,j) - go - gc, LG(i-1,j) - gc)
 
-All three depend only on anti-diagonals d-1 and d-2, so the TPU layout is a
-wavefront: state arrays indexed by row i (vector lanes), scanned over
-diagonals d. Batched over P pairs -> [P, R] tiles per step on the VPU.
+All three depend only on anti-diagonals d-1 and d-2, so this layout is a
+wavefront: state arrays indexed by row i, scanned over diagonals d, batched
+over P pairs -> [P, R] tiles per step. It is the plain XLA reference; the
+GPU kernel with the same semantics is ops/align_strip.py.
 
 N bytes (78) compare equal to each other, matching the reference's char
 comparison on encoded strings.
@@ -206,21 +207,6 @@ def batch_align(seq1: jnp.ndarray, seq2: jnp.ndarray, l1: jnp.ndarray,
 # Host-side batching helpers
 # ---------------------------------------------------------------------------
 
-def _use_pallas_aligner(ba: int, bb: int) -> bool:
-    """Pallas wavefront kernel gate: TPU backend, packed-lane length limit
-    (len<<16|id packing needs l1+l2 <= 32767), and a VMEM budget cap on the
-    row axis (13 carried [Rpad, 128] i32 arrays)."""
-    import os
-    if os.environ.get("MESHCLUST_PALLAS_ALIGN", "1") != "1":
-        return False
-    if ba + bb + 2 > 32767 or ba > 8192:
-        return False
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
-
-
 def align_identity_batch(pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
                          match: int = 1, mismatch: int = -1, go: int = 2,
                          gc: int = 1, max_batch: int = 512) -> np.ndarray:
@@ -248,32 +234,6 @@ def align_identity_batch(pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
             return b
         step = max(64, (1 << (int(x - 1).bit_length() - 1)) // 4)
         return ((x + step - 1) // step) * step
-
-    max_la = max(len(a) for a, _ in pairs)
-    max_lb = max(len(b) for _, b in pairs)
-    use_pallas = _use_pallas_aligner(max_la, max_lb)
-
-    if use_pallas:
-        from meshclust_tpu.ops.align_pallas import align_batch_128
-        # seq2 padding is compute-free in the wavefront kernel (the diagonal
-        # sweep stops at the batch's real max(l1+l2)), so ONE coarse global
-        # seq2 bucket minimizes compile variants; seq1 padding costs VPU work
-        # every diagonal, so it gets fine (quarter-octave) buckets.
-        bb = bucket_len(max_lb)
-        groups = {}
-        for idx, (a, _) in enumerate(pairs):
-            groups.setdefault(bucket_len(len(a), fine=True), []).append(idx)
-        for ba, idxs in groups.items():
-            # sort by combined length: homogeneous batches finish earlier
-            idxs = sorted(idxs, key=lambda i: len(pairs[i][0])
-                          + len(pairs[i][1]))
-            for s in range(0, len(idxs), 128):
-                chunk = idxs[s: s + 128]
-                ident = align_batch_128(
-                    [pairs[i] for i in chunk], ba, bb, match=match,
-                    mismatch=mismatch, go=go, gc=gc)
-                out[np.asarray(chunk)] = ident
-        return out
 
     groups = {}
     for idx, (a, b) in enumerate(pairs):

@@ -3,8 +3,8 @@
 The DS (double-single, ops/ds.py) path makes every clustering decision
 bit-identical to the reference's float64 code (Trainer.cpp:115-127,
 DivergencePoint.cpp:53-81), but its error-free transforms cost ~10-20x the
-f32 op count and fragment XLA fusion — measured ~40% of the whole Phase A
-wall at 150k-1M. This module gets the same decisions at plain-f32 cost:
+f32 op count and fragment XLA fusion. This module gets the same decisions at
+plain-f32 cost:
 
   1. evaluate the classifier score / f1 / distance_d in ordinary f32
      (fully fused by XLA), and ALONGSIDE it a propagated forward error
@@ -195,8 +195,8 @@ def exact_floor_div(sum_i32, count_i32):
     across an integer, so floor(f64 div) == exact floor."""
     q = jnp.floor(sum_i32.astype(jnp.float32) /
                   count_i32.astype(jnp.float32)).astype(jnp.int32)
-    # two rounds: the TPU f32 quotient (reciprocal-based, not correctly
-    # rounded) can be ~2 units off near 2^23
+    # two rounds: the device's f32 quotient is not correctly rounded and
+    # can be ~2 units off near 2^23
     for _ in range(2):
         r = sum_i32 - q * count_i32
         q = jnp.where(r < 0, q - 1, q)

@@ -1,8 +1,9 @@
-"""Double-single (two-float32) arithmetic for float64-class decisions on TPU.
+"""Double-single (two-float32) arithmetic for float64-class decisions.
 
-TPU VPUs have no float64; the reference makes every clustering decision in
-double (Trainer.cpp:115-127, DivergencePoint.cpp:53-81). Round 2 tolerated
-rare f32 boundary flips; this module removes them: every classifier score
+The device programs compute in float32 (the engine was first written for a
+device without float64); the reference makes every clustering decision in
+double (Trainer.cpp:115-127, DivergencePoint.cpp:53-81). Plain f32 flips
+rare boundary decisions; this module removes them: every classifier score
 and distance_d is evaluated as an UNEVALUATED SUM of two float32s
 (hi + lo, |lo| <= ulp(hi)/2) using error-free transformations (Dekker 1971,
 Knuth TAOCP 2.4). Effective precision ~2^-48 — decisions diverge from
@@ -18,9 +19,13 @@ jit-traceable. Constants derived from float64 values (normalization bounds,
 GLM weights) are split host-side by `from_f64`.
 
 XLA note: error-free transforms require the compiler not to reassociate or
-contract these expressions. XLA HLO preserves op-by-op f32 semantics for
-explicit graphs (no auto-FMA rewriting of a*b then subtract on TPU VPU);
-validated on hardware by tests/test_tpu_hw.py::test_ds_matches_float64.
+contract these expressions. On an H100, XLA kept `a*b - p` as two rounded
+operations (no FMA contraction), but its f32 divide and sqrt are not
+correctly rounded (29% and 17% of random operands differ from the IEEE
+result): `div` and `sqrt` refine the f32 estimate from an exact residual,
+so they stay ~2^-44-accurate, yet a floor of a DS quotient can land one
+below an exact integer quotient. Floored means therefore go through
+ds_classify.cw_exact. Checked on the card by tests/test_gpu_hw.py.
 """
 from __future__ import annotations
 
@@ -36,12 +41,9 @@ _SPLIT = np.float32(4097.0)        # 2^12 + 1 (Veltkamp split for f32)
 def _opaque(x):
     """Hide a rounded intermediate from XLA's algebraic simplifier.
 
-    Under jit, XLA rewrites (a + b) - a -> b etc. (excess-precision mode is
-    forced on by this environment's TPU compile service), which silently
-    deletes the error terms the transforms exist to compute. An
-    optimization_barrier keeps the rounding step observable. Measured
-    effect: without barriers the jitted DS score collapses to f32
-    accuracy (3e-8); with them it matches eager/f64 (1e-14)."""
+    Under jit, XLA's simplifier may rewrite (a + b) - a -> b etc., which
+    silently deletes the error terms the transforms exist to compute. An
+    optimization_barrier keeps the rounding step observable."""
     return jax.lax.optimization_barrier(x)
 
 
@@ -129,14 +131,6 @@ def sqrt(x):
     hi, lo = _quick_two_sum(safe, corr)
     zero = x[0] <= 0
     return jnp.where(zero, 0.0, hi), jnp.where(zero, 0.0, lo)
-
-
-def floor(x):
-    """floor(hi + lo) — exact when the result magnitude < 2^24."""
-    f = jnp.floor(x[0])
-    r = x[0] - f                      # exact (both near the same binade)
-    f = f + jnp.floor(r + x[1])       # r + lo in [-1, 2): adjust by -1/0/+1
-    return f, jnp.zeros_like(f)
 
 
 def scale(x, c: float):

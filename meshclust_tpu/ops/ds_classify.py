@@ -2,7 +2,7 @@
 
 Mirrors the float64 expression tree of the host oracle
 (features.raw_from_sums + HostBackend.classify) op-for-op in double-single
-arithmetic (ops/ds.py), so the fused TPU programs make the SAME decisions
+arithmetic (ops/ds.py), so the fused device programs make the SAME decisions
 as the reference's double-precision code (Trainer.cpp:115-127) — the
 round-2 f32 boundary flips disappear.
 
@@ -125,22 +125,13 @@ def score(singles: Sequence[int], combos, mins2, spans2, is_sim, weights2,
     return ds.ge_zero(s), f1[0], f1[1]
 
 
-def mean_pair(sums, counts):
-    """DS mean histogram: sums [.., V] integer-valued f32 / counts [..].
-
-    WARNING: do NOT floor this pair. The TPU f32 divide is not correctly
-    rounded (reciprocal + one Newton step), so DS.div of an EXACT integer
-    quotient can land ~2^-44 BELOW the integer, and a floor then comes
-    out one too low — measured flipping get_mean winners at 150k (round-5
-    find). Use `cw_exact` + `distance_d_from_cw` for anything floored."""
-    c = jnp.maximum(counts, 1.0)
-    return ds.div(ds.wrap(sums), ds.wrap(c[..., None]))
-
-
 def cw_exact(sums, counts):
-    """floor(sums/counts) EXACTLY for integer-valued f32 inputs: integer
+    """floor(sums/counts) EXACTLY for integer-valued f32 inputs. Never floor
+    a DS quotient instead: the device's f32 divide is not correctly
+    rounded, so DS.div of an EXACT integer quotient can land ~2^-44 BELOW
+    the integer and floor one too low, which flips get_mean winners. Integer
     remainder corrections pin the f32 quotient estimate (which may be off
-    by a couple of ulps on TPU) to the true rational floor. Equals the
+    by a couple of ulps on the device) to the true rational floor. Equals the
     reference's double mean + per-element truncation
     (DivergencePoint.cpp:53-65): a f64 quotient of ints with denominator
     < 2^24 never rounds across an integer."""
@@ -175,20 +166,6 @@ def distance_d_scalars(dist, mg):
     reduced exact integer (dist, mag) scalars — the V-reductions happen at
     the caller (where a feature-sharded mesh psums per-shard partials,
     core/accumulate_device.py)."""
-    frac = ds.div(ds.wrap(dist), ds.wrap(jnp.maximum(mg, 1.0)))
-    one = ds.wrap(jnp.ones_like(frac[0]))
-    return ds.scale(ds.sub(one, ds.mul(frac, frac)), 10000.0)
-
-
-def distance_d_mean(h, mean2):
-    """DEPRECATED shim (see mean_pair warning): kept only for callers
-    that already hold a DS mean with no integer provenance."""
-    cw = ds.floor(mean2)[0]
-    dist = 2.0 * jnp.sum(jnp.minimum(h, jnp.broadcast_to(cw, h.shape)),
-                         axis=-1)
-    fl = ds.floor(ds.add(ds.wrap(h), (jnp.broadcast_to(mean2[0], h.shape),
-                                      jnp.broadcast_to(mean2[1], h.shape))))
-    mg = jnp.sum(fl[0], axis=-1)
     frac = ds.div(ds.wrap(dist), ds.wrap(jnp.maximum(mg, 1.0)))
     one = ds.wrap(jnp.ones_like(frac[0]))
     return ds.scale(ds.sub(one, ds.mul(frac, frac)), 10000.0)

@@ -1,11 +1,11 @@
 """Pairwise k-mer similarity statistics + the Feature normalization pipeline.
 
 Reference: Feature.{h,cpp} (SURVEY C9). The reference computes each raw
-statistic with a separate O(4^k) pass per pair. TPU re-design: all default
+statistic with a separate O(4^k) pass per pair. Here all default
 statistics reduce to TWO pairwise reductions over the histogram lanes —
 
-    man[a,b] = sum_v |p_av - q_bv|        (VPU elementwise)
-    dot[a,b] = sum_v p_av * q_bv          (MXU matmul)
+    man[a,b] = sum_v |p_av - q_bv|        (elementwise)
+    dot[a,b] = sum_v p_av * q_bv          (matrix product)
 
 plus per-sequence precomputes (mag = sum p, sq = sum p^2, length):
 
@@ -36,6 +36,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+# The f32 products of integer histograms must be exact: man/dot feed the
+# float64-class decisions and the cross-device psums. A GPU runs an f32 dot
+# at default precision in TF32, which holds integers exactly only to 2^11.
+HIGHEST = jax.lax.Precision.HIGHEST
 
 # Feature bit flags (Feature.h:9-19)
 FEAT_ALIGN = 1 << 0
@@ -92,14 +97,15 @@ def pair_sums_device(hist_a: jnp.ndarray, hist_b: jnp.ndarray
                      ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """man[a,b] and dot[a,b] for histogram blocks [A, V] x [B, V].
 
-    f32 accumulation is exact while V * maxcount^2 < 2^24 is violated only
-    for extreme inputs; dot uses the MXU with f32 accumulation. Callers that
-    need guaranteed exactness use pair_sums_exact (host int64).
+    f32 accumulation is exact while every sum stays below 2^24 (violated
+    only for extreme inputs); the dot runs at HIGHEST precision. Callers
+    that need guaranteed exactness use pair_sums_exact (host int64).
     """
     a = hist_a.astype(jnp.float32)
     b = hist_b.astype(jnp.float32)
     dot = jax.lax.dot_general(
-        a, b, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32)
+        a, b, (((1,), (1,)), ((), ())), precision=HIGHEST,
+        preferred_element_type=jnp.float32)
     man = jnp.sum(jnp.abs(a[:, None, :] - b[None, :, :]), axis=-1)
     return man, dot
 

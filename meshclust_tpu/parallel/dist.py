@@ -1,23 +1,25 @@
 """Distributed runtime wiring for the production pipeline (SURVEY §5.8).
 
-The reference has no distributed code (OpenMP shared memory only); the TPU
-design shards the SEQUENCE axis over a 1-D "data" mesh and replicates the
-(small) center state:
+The reference has no distributed code (OpenMP shared memory only); this
+design shards over a 1-D "data" mesh of all local devices. On a host whose
+GPUs are joined all to all (NVLink), every device reaches every other at the
+same rate, so one flat axis is the whole layout:
 
   - featurization: histogram batches sharded on the batch axis — pure SPMD,
-    XLA partitions the one-hot matmul with zero collectives;
+    XLA partitions the histogram scatter with zero collectives;
   - fused Phase B (update+merge loop): member pools sharded, centers
     replicated; per-iteration psum of (sum histograms, counts) and a
     lexicographic (distance, global-pool-position) min across shards — the
     deterministic global-id tie-break that makes N-device output equal
     1-device output (see core/classify._build_phaseb);
-  - Phase A (accumulate) stays replicated: it is sequential by contract
-    (each absorb changes the candidate store for the next step) and is
-    latency-, not throughput-bound.
+  - Phase A (accumulate) is sequential by contract (each absorb changes the
+    candidate store for the next step), so it shards the FEATURE axis
+    instead: each device holds [N, V/n] and psums exact integer partials
+    (core/accumulate_device.py).
 
 Multi-host: call init_distributed() before anything else; jax.distributed
 wires the hosts into one global device list and the same mesh code runs
-over ICI+DCN.
+across them.
 
 Determinism note: every cross-shard reduction here either sums integers
 held exactly in f32 (histogram counts < 2^24) or takes lexicographic mins,
@@ -67,7 +69,7 @@ def put(mesh, spec, a):
     """Multiprocess-safe device_put of a host array every process holds in
     full: each process contributes only its addressable shards
     (jax.make_array_from_callback), so the same code runs on a single-host
-    virtual mesh and on N-host ICI+DCN meshes."""
+    mesh and on a multi-host one."""
     import jax
     from jax.sharding import NamedSharding
     sh = NamedSharding(mesh, spec)
@@ -79,8 +81,8 @@ def put(mesh, spec, a):
 
 def fetch(x) -> np.ndarray:
     """Multiprocess-safe readback: np.asarray when every shard is local;
-    otherwise reshard to fully-replicated (all_gather over ICI/DCN) first —
-    a fully-replicated global array converts to numpy on every host."""
+    otherwise reshard to fully-replicated (an all_gather) first — a
+    fully-replicated global array converts to numpy on every host."""
     import jax
     if not hasattr(x, "sharding") or x.is_fully_addressable:
         return np.asarray(x)

@@ -121,7 +121,7 @@ def make_update_step(mesh: Mesh, V: int, delta: int, singles, combos):
             w = (pos & in_band).astype(jnp.float32)
             member_pos.append(pos & in_band)
             onehot = (jax.nn.one_hot(j, C, dtype=jnp.float32) * w[:, None])
-            sums = sums + onehot.T @ m_hist
+            sums = sums + jnp.dot(onehot.T, m_hist, precision=F.HIGHEST)
             counts = counts + onehot.sum(axis=0)
         sums = jax.lax.psum(sums, "data")
         counts = jax.lax.psum(counts, "data")

@@ -12,7 +12,7 @@ from meshclust_tpu.red.runner import RedConfig, run_red
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
-        prog="red-tpu", description="REpeat Detector (meshclust-tpu)",
+        prog="red", description="REpeat Detector (meshclust)",
         prefix_chars="-")
     p.add_argument("-gnm", required=True, help="input genome directory (*.fa)")
     p.add_argument("-msk", help="masked-sequence output directory")

@@ -18,7 +18,7 @@ def _pointset(rng, n_species=8, per=10, length=400, rate=0.03):
             seq = base if c == 0 else mutate(rng, base, rate)
             seqs.append(fasta.encode_record(f">sp{s}_c{c}", seq.encode()))
     order = rng.permutation(len(seqs))
-    return build_points([seqs[i] for i in order], k=4, use_pallas=False)
+    return build_points([seqs[i] for i in order], k=4)
 
 
 def _params(ps):
@@ -129,7 +129,7 @@ def test_certified_mode_with_duplicates(rng, monkeypatch):
             seq = base if c % 2 == 0 else mutate(r, base, 0.05)
             seqs.append(fasta.encode_record(f">sp{s}_c{c}", seq.encode()))
     order = r.permutation(len(seqs))
-    ps = build_points([seqs[i] for i in order], k=4, use_pallas=False)
+    ps = build_points([seqs[i] for i in order], k=4)
     params = _params(ps)
     from meshclust_tpu.core.accumulate_device import accumulate_device
 

@@ -27,7 +27,7 @@ def test_align_mode_low_identity(rng, make_fasta, tmp_path):
     path = make_fasta(records, "viral.fasta")
     out = str(tmp_path / "out.clstr")
     cfg = ClusterConfig(files=[path], similarity=0.50, output=out,
-                        iterations=3, sample_size=300, use_pallas=False)
+                        iterations=3, sample_size=300)
     res = run(cfg)
     assert res["model"].k == 0          # align mode engaged
     labels = partition_labels(parse_clstr(out))
@@ -50,8 +50,7 @@ def test_forced_align_flag(rng, make_fasta, tmp_path):
     path = make_fasta(records, "forced.fasta")
     out = str(tmp_path / "out.clstr")
     res = run(ClusterConfig(files=[path], similarity=0.90, align=True,
-                            output=out, iterations=2, sample_size=100,
-                            use_pallas=False))
+                            output=out, iterations=2, sample_size=100))
     assert res["model"].k == 0
     assert res["n_clusters"] >= 3
 
@@ -80,7 +79,7 @@ def test_align_backend_matches_host(rng):
         for c in range(6):
             seq = base if c == 0 else mutate(rng, base, 0.25)
             seqs.append(fasta.encode_record(f">x{s}_{c}", seq.encode()))
-    ps = build_points(seqs, k=3, use_pallas=False)
+    ps = build_points(seqs, k=3)
     params = _align_params(0.50)
     aligner = DeviceAligner(ps.codes)
 

@@ -47,13 +47,15 @@ def test_ds_ops_match_float64(rng):
 
 def test_ds_floor_rational_means(rng):
     """floor of p/q rationals (q < 2^24) must equal the exact floor — the
-    distance_d guarantee."""
+    distance_d guarantee. Floored means come from the integer-corrected
+    `cw_exact`, never from flooring a DS quotient (a divide that is not
+    correctly rounded puts exact quotients a hair below the integer)."""
     q = rng.integers(1, 1 << 12, 4096).astype(np.int64)
     n = rng.integers(0, 1 << 11, 4096).astype(np.int64)
     p = n * q + rng.integers(0, 2, 4096) * (q // 2)   # exact or mid, < 2^24
-    mean = ds.div(ds.wrap(jnp.asarray(p, jnp.float32)),
-                  ds.wrap(jnp.asarray(q, jnp.float32)))
-    got = np.asarray(ds.floor(mean)[0]).astype(np.int64)
+    got = np.asarray(DSC.cw_exact(jnp.asarray(p[:, None], jnp.float32),
+                                  jnp.asarray(q, jnp.float32)))
+    got = got[:, 0].astype(np.int64)
     want = p // q
     np.testing.assert_array_equal(got, want)
 
@@ -127,7 +129,8 @@ def test_ds_classifier_matches_float64(rng):
 
 
 def test_ds_distance_matches_mean_select(rng):
-    """distance_d_mean vs the float64 mean_select math on random members."""
+    """distance_d_from_cw vs the float64 mean_select math on random
+    members."""
     V = 64
     M = 500
     h = rng.integers(1, 100, size=(M, V)).astype(np.int64)
@@ -151,11 +154,11 @@ def test_ds_distance_matches_mean_select(rng):
 
 
 def test_cw_exact_at_integer_means(rng):
-    """Exact-integer lane means are the adversarial case: the TPU f32
-    divide (reciprocal-based) can land ~2^-44 BELOW an exact integer
-    quotient, and a naive DS floor then comes out one low — the round-5
-    bug that flipped get_mean winners at 150k. cw_exact must pin every
-    lane to the true rational floor."""
+    """Exact-integer lane means are the adversarial case: a device f32
+    divide that is not correctly rounded (the GPU's is not) can land
+    ~2^-44 BELOW an exact integer quotient, and a naive DS floor then comes
+    out one low, flipping get_mean winners. cw_exact must pin every lane
+    to the true rational floor."""
     for cnt in (7, 98, 1000, 16383):
         V = 128
         q_true = rng.integers(0, 200, V).astype(np.int64)

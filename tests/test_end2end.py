@@ -29,7 +29,7 @@ def test_cluster_recovery(rng, make_fasta, tmp_path):
     path = make_fasta(records, "synth.fasta")
     out = str(tmp_path / "out.clstr")
     cfg = ClusterConfig(files=[path], similarity=0.90, output=out,
-                        iterations=5, use_pallas=False)
+                        iterations=5)
     res = run(cfg)
     clusters = parse_clstr(out)
     labels = partition_labels(clusters)
@@ -48,9 +48,9 @@ def test_exact_and_device_paths_agree(rng, make_fasta, tmp_path):
     out1 = str(tmp_path / "dev.clstr")
     out2 = str(tmp_path / "exact.clstr")
     run(ClusterConfig(files=[path], similarity=0.90, output=out1,
-                      iterations=3, use_pallas=False))
+                      iterations=3))
     run(ClusterConfig(files=[path], similarity=0.90, output=out2,
-                      iterations=3, use_pallas=False, exact=True))
+                      iterations=3, exact=True))
     la = partition_labels(parse_clstr(out1))
     lb = partition_labels(parse_clstr(out2))
     assert nmi(la, lb) > 0.99

@@ -30,8 +30,7 @@ def _labels(path, out, **env):
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update({k: str(v) for k, v in env.items()})
     try:
-        run(ClusterConfig(files=[path], similarity=0.90, output=out,
-                          use_pallas=False))
+        run(ClusterConfig(files=[path], similarity=0.90, output=out))
     finally:
         for k, v in saved.items():
             if v is None:

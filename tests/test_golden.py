@@ -42,7 +42,7 @@ def test_partition_parity_id090(rng, make_fasta, tmp_path, have_ref):
     our_out = str(tmp_path / "ours.clstr")
     run_reference(path, ref_out, similarity=0.90, iterations=5, threads=4)
     run(ClusterConfig(files=[path], similarity=0.90, output=our_out,
-                      iterations=5, use_pallas=False))
+                      iterations=5))
     ref_labels = partition_labels(parse_clstr(ref_out))
     our_labels = partition_labels(parse_clstr(our_out))
     assert set(ref_labels) == set(our_labels)
@@ -59,7 +59,7 @@ def test_partition_parity_id083(rng, make_fasta, tmp_path, have_ref):
     our_out = str(tmp_path / "ours.clstr")
     run_reference(path, ref_out, similarity=0.83, iterations=5, threads=4)
     run(ClusterConfig(files=[path], similarity=0.83, output=our_out,
-                      iterations=5, use_pallas=False))
+                      iterations=5))
     ref_labels = partition_labels(parse_clstr(ref_out))
     our_labels = partition_labels(parse_clstr(our_out))
     score = nmi(our_labels, ref_labels)
@@ -192,7 +192,7 @@ def test_partition_parity_16s_8k(rng, make_fasta, tmp_path, have_ref):
     run_reference(path, ref_out, similarity=0.85, delta=10, threads=1,
                   timeout=1800)
     run(ClusterConfig(files=[path], similarity=0.85, delta=10,
-                      output=our_out, use_pallas=False))
+                      output=our_out))
     ref_labels = partition_labels(parse_clstr(ref_out))
     our_labels = partition_labels(parse_clstr(our_out))
     assert set(ref_labels) == set(our_labels)

@@ -31,10 +31,10 @@ def test_fused_phaseb_matches_periter(rng, make_fasta, tmp_path,
 
     monkeypatch.setenv("MESHCLUST_FUSED_PHASEB", "1")
     run(ClusterConfig(files=[path], similarity=0.90, output=out_f,
-                      iterations=6, use_pallas=False))
+                      iterations=6))
     monkeypatch.setenv("MESHCLUST_FUSED_PHASEB", "0")
     run(ClusterConfig(files=[path], similarity=0.90, output=out_p,
-                      iterations=6, use_pallas=False))
+                      iterations=6))
 
     lf = partition_labels(parse_clstr(out_f))
     lp = partition_labels(parse_clstr(out_p))
@@ -51,3 +51,26 @@ def test_fused_phaseb_matches_periter(rng, make_fasta, tmp_path,
         return out
 
     assert reps(out_f) == reps(out_p)
+
+
+def test_replay_mismatch_counts_a_fallback():
+    """A fused Phase B whose device history disagrees with the host replay
+    restores the centers, returns None (the caller then runs the host
+    path) and counts one fallback, which chip_smoke.py requires to be 0."""
+    from meshclust_tpu.core.meanshift import Center, MeanShift
+    from meshclust_tpu.utils import perf
+
+    class Backend:
+        def phase_b_loop(self, members, assign, centers, delta, iterations):
+            # claims one surviving center where the replay keeps two
+            return (np.zeros(members.shape[0], np.int64),
+                    np.asarray(centers), np.asarray([True, False]),
+                    [np.asarray([0, 1])])
+
+    ms = MeanShift(None, Backend(), sim=0.9, delta=1, iterations=1)
+    centers = [Center(0, [0, 2]), Center(1, [1, 3])]
+    perf.reset()
+    assert ms.run_phase_b_device(centers) is None
+    assert perf.counters()["phase_b_replay_fallbacks"] == 1
+    assert [(c.center, c.members) for c in centers] == [(0, [0, 2]),
+                                                        (1, [1, 3])]
